@@ -1,0 +1,170 @@
+"""Unified model configuration covering all assigned architecture families."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+Family = Literal["dense", "ssm", "hybrid", "encdec", "moe", "vlm"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Family
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                    # 0 -> d_model // num_heads
+
+    # attention variants
+    qkv_bias: bool = False
+    qk_norm: bool = False                # per-head RMSNorm on q/k (qwen3, stablelm)
+    sliding_window: int | None = None    # SWA (h2o-danube)
+    chunk_size: int | None = None        # chunked-local attention (llama4)
+    global_every: int = 0                # every k-th layer full/NoPE (llama4)
+    rope_theta: float = 1_000_000.0
+    rope_pct: float = 1.0                # partial rotary (stablelm: 0.25)
+    mrope_sections: tuple[int, ...] = () # M-RoPE (qwen2-vl): t/h/w splits
+
+    # residual / embedding scaling (minicpm muP-style)
+    residual_scale: float = 1.0
+    embed_scale: float = 1.0
+    logit_scale: float = 1.0
+    tie_embeddings: bool = False
+
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    shared_expert: bool = False          # llama4 shared expert
+    norm_topk: bool = False              # qwen3 normalises top-k weights
+
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    shared_attn_every: int = 0           # zamba2: shared attn block cadence
+    rwkv: bool = False
+
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0                 # fixed frame count (whisper: 1500)
+    encoder_d_ff: int = 0
+
+    # frontends provided as stubs (audio frames / vision patches)
+    frontend_stub: bool = False
+
+    norm_eps: float = 1e-5
+    max_position: int = 1 << 20
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    # -- derived -----------------------------------------------------------
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context with bounded memory?"""
+        if self.family in ("ssm",):
+            return True
+        if self.family == "hybrid":
+            return True                  # SSM state + windowed shared attn
+        return self.sliding_window is not None
+
+    @property
+    def is_decoder(self) -> bool:
+        return True  # all assigned archs have an autoregressive path
+                     # (whisper via its decoder; encoder KV is precomputed)
+
+    def param_count_estimate(self) -> int:
+        """Rough parameter count (embeddings + blocks), for 6ND math."""
+        d, L = self.d_model, self.num_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.rwkv:
+            blk = L * (4 * d * d + 2 * d * self.d_ff + 3 * d * 64)
+            return emb + blk
+        attn = d * self.q_dim * 2 + d * self.kv_dim * 2
+        if self.family == "moe":
+            ff = self.num_experts * 3 * d * self.moe_d_ff
+            if self.shared_expert:
+                ff += 3 * d * self.d_ff
+        else:
+            ff = 3 * d * self.d_ff
+        if self.family == "ssm" or self.family == "hybrid":
+            d_in = self.ssm_expand * d
+            blk = (2 * d * d_in + d_in * d  # in/out proj
+                   + d_in * self.ssm_state * 2 + d_in * self.ssm_conv)
+            ssm_layers = L
+            out = emb + ssm_layers * blk
+            if self.shared_attn_every:
+                out += attn + 3 * d * self.d_ff
+            if self.family == "hybrid":
+                return out
+            return out
+        total = emb + L * (attn + ff)
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn + 3 * d * self.encoder_d_ff
+                                            if self.encoder_d_ff else attn + ff)
+        return total
+
+    def active_param_count_estimate(self) -> int:
+        """Active params per token (MoE: only routed experts count)."""
+        if self.family != "moe":
+            return self.param_count_estimate()
+        d, L = self.d_model, self.num_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * self.q_dim * 2 + d * self.kv_dim * 2
+        ff = self.experts_per_token * 3 * d * self.moe_d_ff
+        if self.shared_expert:
+            ff += 3 * d * self.d_ff
+        router = d * self.num_experts
+        return emb + L * (attn + ff + router)
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A smoke-test-sized config of the same family."""
+        small = dict(
+            num_layers=min(self.num_layers, 2),
+            d_model=128,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads
+            else 0,
+            head_dim=32,
+            d_ff=256,
+            vocab_size=512,
+            max_position=4096,
+        )
+        if self.num_kv_heads == self.num_heads:
+            small["num_kv_heads"] = 4
+        if self.num_experts:
+            small.update(num_experts=8, experts_per_token=min(
+                2, self.experts_per_token), moe_d_ff=64)
+        if self.ssm_state:
+            small.update(ssm_state=16)
+        if self.encoder_layers:
+            small.update(encoder_layers=2, encoder_seq=64, encoder_d_ff=256)
+        if self.mrope_sections:
+            small.update(mrope_sections=(4, 6, 6))
+        if self.sliding_window:
+            small.update(sliding_window=64)
+        if self.chunk_size:
+            small.update(chunk_size=64)
+        if self.shared_attn_every:
+            small.update(shared_attn_every=2, num_layers=4)
+        small.update(overrides)
+        return dataclasses.replace(self, **small)
